@@ -1,7 +1,7 @@
-"""Adjoint cost at a checkpointed high-Ra coupled state (VERDICT r4 #5).
+"""Adjoint cost at a checkpointed high-Ra coupled state.
 
 The forward solver reaches p16 Ra=1e7; the implicit adjoint
-(sem_tpu.coupling.implicit) was previously measured only to Ra=1e5 at
+(sem_jax.coupling.implicit) was previously measured only to Ra=1e5 at
 P=4 16x16.  This harness loads a converged study checkpoint (the
 ``-ckpt True`` artifact of study/boussinesq_run.py), rebuilds the solvers
 at its recorded configuration, verifies the state's residual, and measures
@@ -30,15 +30,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 
-if os.environ.get("JAX_PLATFORM_NAME"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORM_NAME"])
-
 import jax.numpy as jnp
 
-from sem_tpu.coupling.boussinesq import build_coupled
-from sem_tpu.coupling.implicit import (coupled_residual_fn, gradients,
+from sem_jax.coupling.boussinesq import build_coupled
+from sem_jax.coupling.implicit import (coupled_residual_fn, gradients,
                                        solve_adjoint)
-from sem_tpu.utils.checkpoint import load_checkpoint
+from sem_jax.utils.checkpoint import load_checkpoint
 
 
 def _flag(name, default, cast=float):
@@ -111,7 +108,7 @@ def main():
         print(f"  d(loss)/d({k}) = {g:.8e}", flush=True)
 
     if do_fd:
-        from sem_tpu.coupling.mda import CoupledState
+        from sem_jax.coupling.mda import CoupledState
         h = params["Ra"] * 1e-4
         vals = {}
         for sgn in (+1, -1):

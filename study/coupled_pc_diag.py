@@ -32,7 +32,7 @@ Usage: python study/coupled_pc_diag.py [--synthetic] [--random-rhs]
 import os
 import sys
 
-os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +41,7 @@ import scipy.linalg
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from sem_tpu.mesh import Grid2D
+from sem_jax.mesh import Grid2D
 from schur_spectrum import build_blocks
 
 P, Ne, Re = 8, 8, 400.0
@@ -57,7 +57,7 @@ else:
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    from sem_tpu import NavierStokesSolver
+    from sem_jax import NavierStokesSolver
     ns = NavierStokesSolver(1.0, 1.0, Re=Re, Gr=0.0, P=P, N_ex=Ne, N_ey=Ne,
                             u_N=1.0, iprint=[])
     uj, vj, _ = ns._get_solution(jnp.zeros(N))

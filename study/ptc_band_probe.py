@@ -2,7 +2,7 @@
 
 At Ra=1e8 p16 the SER controller keeps probing Δt values whose implicit-
 Euler tangent system the coupled FGMRES contracts at only ~0.06%/iteration
-(study/hw_logs/ra1e8.log steps 2/8/29) — real progress, so plateau tests
+(Ra=1e8 march steps 2/8/29) — real progress, so plateau tests
 never fire, and (before the forecast exit) each probe ground the full
 per-step effort cap.  This script reproduces that exact system from a run
 checkpoint — same state, same σ = (Pe/Δt, Re/Δt) shifts, same fused
@@ -31,9 +31,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 import jax
 
-if os.environ.get("JAX_PLATFORM_NAME"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORM_NAME"])
-
 import jax.numpy as jnp
 
 
@@ -41,9 +38,9 @@ def probe(ckpt, Ra, P=16, N_e=64, Re=1.e3, Pr=0.71, dts=(0.9,),
           velo_inners=(5,), pcs=("bgs",), its=80, restart=20,
           mtol_nonlin=1e-10, mtol_gmres=1e-13, mtol_internal=1e-13,
           ptc_forcing=None, schur=None):
-    from sem_tpu.coupling import build_coupled
-    from sem_tpu.coupling.mda import _fgmres, CoupledState
-    from sem_tpu.utils.checkpoint import load_checkpoint
+    from sem_jax.coupling import build_coupled
+    from sem_jax.coupling.mda import _fgmres, CoupledState
+    from sem_jax.utils.checkpoint import load_checkpoint
 
     state0, cfg0, _ = load_checkpoint(ckpt)
     print(f"checkpoint: {ckpt}\n  config {cfg0}")

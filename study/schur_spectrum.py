@@ -29,14 +29,14 @@ Usage:  python study/schur_spectrum.py [P Ne [P Ne ...]] [--wind]
 import sys
 import os
 
-os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from sem_tpu.mesh import Grid2D
+from sem_jax.mesh import Grid2D
 
 
 def build_blocks(grid: Grid2D, Re=1e3, u=None, v=None):
@@ -120,7 +120,6 @@ def run_config(P, Ne, Re=1e3, with_wind=False, lid_re=None,
     if lid_re is not None:
         # strong O(1) recirculating wind at lid-cavity Reynolds number —
         # the convection-dominated regime where the f32 mixed path stalls
-        # (BASELINE r2/r3; ROADMAP r3 design notes)
         Re = float(lid_re)
         x, y = grid.points
         u = np.sin(np.pi * x) ** 2 * np.sin(2 * np.pi * y)

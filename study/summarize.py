@@ -3,7 +3,7 @@
 The reference study's de-facto benchmark is the saved
 ``[cd_linear_solves, ns_linear_solves, nonlinear_iters]`` triple per
 configuration (reference study/Boussinesq_run.py:114-135); this prints a
-markdown table of every saved run for BASELINE.md / reports.
+markdown table of every saved run for reports.
 
 Durability: the full-field ``.npz`` artifacts are ~20 MB each and gitignored
 (they do not survive workspace resets).  For every ``.npz`` processed, this

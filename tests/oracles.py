@@ -3,13 +3,13 @@
 These build the global Galerkin operators *densely and naively from the
 mathematical definition* (loop over elements, accumulate into dense global
 matrices via the local→global map).  They deliberately share no code with
-``sem_tpu.operators`` (which uses tensor-product factorizations and
+``sem_jax.operators`` (which uses tensor-product factorizations and
 segment-sums), so agreement is a real cross-check.
 """
 import numpy as np
 
-from sem_tpu import gll
-from sem_tpu.mesh import Grid2D
+from sem_jax import gll
+from sem_jax.mesh import Grid2D
 
 
 def local_to_global(grid: Grid2D, m, n, i, j):

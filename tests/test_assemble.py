@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from sem_tpu import assemble as asm
-from sem_tpu import operators as ops
-from sem_tpu.mesh import Grid2D
+from sem_jax import assemble as asm
+from sem_jax import operators as ops
+from sem_jax.mesh import Grid2D
 from tests import oracles
 
 RNG = np.random.default_rng(9)

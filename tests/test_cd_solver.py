@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from sem_tpu import ConvectionDiffusionSolver
+from sem_jax import ConvectionDiffusionSolver
 from tests import oracles
 
 RNG = np.random.default_rng(7)
@@ -100,7 +100,7 @@ def test_cd_neumann_sides_conserve():
 def test_lgmres_iter_prints_per_iteration(capsys):
     """'LGMRES_iter' emits the reference's per-iteration residual lines
     (reference ConvectionDiffusion_Solver.py:139-144)."""
-    from sem_tpu import ConvectionDiffusionSolver
+    from sem_jax import ConvectionDiffusionSolver
     import jax.numpy as jnp
     cd = ConvectionDiffusionSolver(1.0, 1.0, Pe=5.0, P=3, N_ex=2, N_ey=2,
                                    T_W=0.5, T_E=-0.5, mtol=1e-10,

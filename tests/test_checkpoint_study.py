@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from sem_tpu.coupling import build_coupled
-from sem_tpu.coupling.mda import CoupledState
-from sem_tpu.utils import save_checkpoint, load_checkpoint
+from sem_jax.coupling import build_coupled
+from sem_jax.coupling.mda import CoupledState
+from sem_jax.utils import save_checkpoint, load_checkpoint
 
 CFG = dict(Re=1e3, Ra=1e3, Pr=0.71, P=3, N_e=3)
 
@@ -60,7 +60,7 @@ def test_resume_from_checkpoint_converges_immediately(tmp_path):
 def test_study_harness_cli(tmp_path):
     """The sweep CLI runs end-to-end and saves the npz/log artifacts."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, JAX_PLATFORM_NAME="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, os.path.join(repo, "study", "boussinesq_run.py"),
          "-P", "2", "-Ne", "2", "-mode", "GS", "-log", "True",
@@ -143,7 +143,7 @@ def test_cli_budget_exit_and_cross_physics_init(tmp_path):
     -init warm-starts a DIFFERENT-Ra run from it (manual Ra continuation —
     how the Ra=1e8 march is seeded from the converged Ra=1e7 state)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, JAX_PLATFORM_NAME="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     # P=3 Ne=3 at Re=Ra=1e3 needs several GS sweeps — the budget check
     # (between sweeps) must actually be reached (tinier configs converge
     # in ONE sweep and return before any budget test)

@@ -7,7 +7,7 @@ identities.
 import numpy as np
 import pytest
 
-from sem_tpu import gll
+from sem_jax import gll
 from tests import oracles
 
 

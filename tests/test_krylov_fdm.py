@@ -3,10 +3,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from sem_tpu import operators as ops
-from sem_tpu.fdm import FDM2D
-from sem_tpu.krylov import cg, gmres
-from sem_tpu.mesh import Grid2D
+from sem_jax import operators as ops
+from sem_jax.fdm import FDM2D
+from sem_jax.krylov import cg, gmres
+from sem_jax.mesh import Grid2D
 from tests import oracles
 
 RNG = np.random.default_rng(42)
@@ -115,7 +115,7 @@ def test_fgmres_basis_dtype_and_varying_precon():
     """fgmres honors basis_dtype (bf16 Arnoldi basis, f32 arithmetic and
     flexible basis) and converges under a deliberately VARYING right
     preconditioner — the contract the row-scaled flexible chunks rely on."""
-    from sem_tpu.krylov import fgmres
+    from sem_jax.krylov import fgmres
 
     n = 96
     A = 10.0 * np.eye(n) + RNG.standard_normal((n, n)) / np.sqrt(n)

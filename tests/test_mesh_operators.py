@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from sem_tpu import operators as ops
-from sem_tpu.mesh import Grid2D, x2xi, xi2x
+from sem_jax import operators as ops
+from sem_jax.mesh import Grid2D, x2xi, xi2x
 from tests import oracles
 
 RNG = np.random.default_rng(0)
@@ -149,7 +149,7 @@ def test_x2xi_out_of_domain_raises():
     """Domain guardrail (the reference enforces it through xi2x's range
     check, reference SEM.py:18-19)."""
     import pytest
-    from sem_tpu.mesh import x2xi
+    from sem_jax.mesh import x2xi
     with pytest.raises(ValueError):
         x2xi(np.array([-0.1, 0.5]), 0.25, N_e=4)
     with pytest.raises(ValueError):

@@ -1,8 +1,8 @@
-"""Multi-HOST (multi-process) smoke test — SURVEY.md §5.8 / VERDICT r3 #7.
+"""Multi-HOST (multi-process) smoke test — SURVEY.md §5.8.
 
 The reference genuinely runs 2 OS processes over MPI (reference
 OpenMDAO/Boussinesq_ParallelCoupler.py:8-9 ``MPI.COMM_WORLD``, :115 gather);
-the sem_tpu analog is JAX's multi-controller runtime.  This test launches
+the sem_jax analog is JAX's multi-controller runtime.  This test launches
 TWO coordinated processes (2 virtual CPU devices each → a 4-device global
 mesh with an explicit ``('dcn', 'x')`` factorization along the process
 boundary) and checks that a coupled Gauss-Seidel step — CD linear solve +
@@ -19,12 +19,10 @@ import sys
 _WORKER = r"""
 import os, sys
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["JAX_PLATFORM_NAME"] = "cpu"
 import jax
-jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, sys.argv[3])
 
-from sem_tpu.parallel import (init_distributed, make_mesh, use_mesh,
+from sem_jax.parallel import (init_distributed, make_mesh, use_mesh,
                               gather_global)
 
 pid, nproc = init_distributed(f"127.0.0.1:{sys.argv[2]}", 2,
@@ -35,8 +33,8 @@ assert jax.local_device_count() == 2
 
 import numpy as np
 import jax.numpy as jnp
-from sem_tpu.coupling import build_coupled
-from sem_tpu.coupling.mda import CoupledState
+from sem_jax.coupling import build_coupled
+from sem_jax.coupling.mda import CoupledState
 
 kw = dict(Re=1e2, Ra=1e2, Pr=0.71, P_cd=2, N_ex_cd=2, N_ey_cd=2,
           P_ns=2, N_ex_ns=4, N_ey_ns=4, mtol_internal=1e-10, iprint=False)
@@ -67,7 +65,7 @@ def test_make_mesh_explicit_dcn_errors_single_process():
     return a flat mesh that downstream ('dcn', 'x')-keyed code trips over."""
     import pytest
 
-    from sem_tpu.parallel import make_mesh
+    from sem_jax.parallel import make_mesh
 
     with pytest.raises(ValueError, match="only one process"):
         make_mesh(dcn=True)
@@ -80,7 +78,7 @@ def test_init_distributed_rejects_conflicting_device_count(monkeypatch):
     not silently produce a different global mesh shape."""
     import pytest
 
-    from sem_tpu.parallel import init_distributed
+    from sem_jax.parallel import init_distributed
 
     monkeypatch.setenv("XLA_FLAGS",
                        "--xla_force_host_platform_device_count=8")
@@ -99,7 +97,6 @@ def test_two_process_coupled_step_matches_single_process(tmp_path):
     port = _free_port()
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)          # workers force their own 2 devices
-    env.pop("JAX_PLATFORM_NAME", None)
     procs = [subprocess.Popen(
         [sys.executable, "-c", _WORKER, str(rank), str(port), repo],
         cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from sem_tpu import NavierStokesSolver
-from sem_tpu import operators as ops
+from sem_jax import NavierStokesSolver
+from sem_jax import operators as ops
 
 RNG = np.random.default_rng(11)
 
@@ -85,7 +85,7 @@ def test_ns_lid_driven_divergence_free():
 
 def test_ns_uzawa_matches_coupled():
     """The structural-parity Uzawa path (nested Krylov, reference
-    NavierStokes_Solver.py:162-236) and the TPU-native coupled saddle path
+    NavierStokes_Solver.py:162-236) and the coupled saddle path
     converge to the same solution."""
     kw = dict(Re=50.0, Gr=100.0, P=3, N_ex=3, N_ey=3, u_N=1.0,
               mtol=1e-11, mtol_newton=1e-9, iprint=[])
@@ -139,7 +139,7 @@ def test_ns_spectral_schur_update_solves_tangent_system():
 
 def test_ns_spectral_schur_resolution_robust():
     """The 'spectral' Schur block keeps inner GMRES counts nearly flat under
-    mesh refinement (<2× per 2× refinement — VERDICT round-1 criterion),
+    mesh refinement (<2× per 2× refinement),
     where the reference's diag-mass block degrades ~linearly in 1/h
     (measured 52→181 over 4× refinement, study/schur_spectrum.py)."""
     counts = {}
@@ -201,7 +201,7 @@ def test_ns_re400_p8_f32_path_zero_fallbacks():
     """The Re=400 lid cavity at P=8 16×16 — the round-3 f32 stall case
     (plain chunks floor; 4 single-level f64 fallbacks) — converges entirely
     on the f32 mixed path via the flexible velo_inner=5 escalation
-    (VERDICT r3 #2 acceptance: 0 f64 fallbacks).  Also pins the
+    (0 f64 fallbacks).  Also pins the
     no-progress rescue: without it the accepted zero-update stalls froze
     Newton at 3.3× target with bit-identical residuals."""
     ns = NavierStokesSolver(1.0, 1.0, Re=400.0, Gr=0.0, P=8, N_ex=16,
@@ -219,7 +219,7 @@ def test_ns_re400_p8_f32_path_zero_fallbacks():
 def test_ns_solve_continued_matches_direct():
     """Standalone-NS p-continuation reaches the direct solution within the
     Newton tolerance with a warm-started fine level."""
-    from sem_tpu.models.navier_stokes import solve_ns_continued
+    from sem_jax.models.navier_stokes import solve_ns_continued
 
     kw = dict(u_N=1.0, mtol=1e-12, mtol_newton=1e-11, iprint=[])
     ns_d = NavierStokesSolver(1.0, 1.0, Re=100.0, Gr=0.0, P=4, N_ex=4,
@@ -257,7 +257,7 @@ def test_ns_ghia_re100():
 def test_ns_ghia_re400():
     """Lid cavity at the reference example config (Re=400, P=4, 16×16 —
     reference Examples/NavierStokes_Example.py:15-29) matches the Ghia
-    et al. (1982) Table I centerline values (VERDICT r2 #9: pin the
+    et al. (1982) Table I centerline values (pin the
     previously prose-only anchor in CI; measured deviation 4.3e-3)."""
     ns = NavierStokesSolver(1.0, 1.0, Re=400.0, Gr=0.0, P=4, N_ex=16,
                             N_ey=16, u_N=1.0, iprint=[])
@@ -275,7 +275,7 @@ def test_ns_ghia_re400():
 @pytest.mark.slow
 def test_ns_ghia_re1000_ptc_mixed_path():
     """Re=1000 lid cavity through pseudo-transient continuation, entirely
-    on the f32 mixed-precision path (VERDICT r2 #2: the steady from-zero
+    on the f32 mixed-precision path (the steady from-zero
     Newton at Re≥400 needed a full-f64 fallback; the σ-shifted PTC systems
     stay inside the mixed path's attainable range — asserted via the
     fallback counter).  Ghia et al. (1982) Re=1000 centerline anchor;
@@ -315,7 +315,7 @@ def test_best_effort_update_skips_f64_escalation(monkeypatch):
     monkeypatched mixed path so the test stays cheap (the real trigger is a
     convection-dominated tangent block, measured at Ra=1e7 p16 — each f64
     escalation there costs minutes)."""
-    from sem_tpu.krylov import KrylovInfo
+    from sem_jax.krylov import KrylovInfo
 
     ns = NavierStokesSolver(1.0, 1.0, Re=50.0, Gr=0.0, P=3, N_ex=3, N_ey=3,
                             u_N=1.0, iprint=[])

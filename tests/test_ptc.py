@@ -1,7 +1,7 @@
 """Pseudo-transient continuation (PTC) and mass-shift (sigma) tests.
 
 PTC is the round-3 capability that breaks the high-Rayleigh ceiling
-(BASELINE.md round 2: from-zero JNK diverges above Ra≈1e4 and the coupled
+(from-zero JNK diverges above Ra≈1e4 and the coupled
 GMRES flat-lines at Ra=1e5; the reference's PETSc GMRES + LinearBlockJac is
 the same algorithm).  The shift machinery is shared: solver Jacobian
 diagonals carry σ·diag(M), the FDM preconditioner solves (K + (α+σ)M), and
@@ -13,8 +13,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from sem_tpu.fdm import FDM2D
-from sem_tpu.mesh import Grid2D
+from sem_jax.fdm import FDM2D
+from sem_jax.mesh import Grid2D
 
 RNG = np.random.default_rng(11)
 
@@ -35,7 +35,7 @@ def test_fdm_traced_sigma_matches_static_alpha():
 def test_ns_sigma_shift_is_mass_diagonal():
     """The σ-linearized NS tangent differs from the steady tangent by
     exactly σ·M on the (u,u)/(v,v) blocks (non-Dirichlet rows only)."""
-    from sem_tpu.models.navier_stokes import NavierStokesSolver
+    from sem_jax.models.navier_stokes import NavierStokesSolver
 
     ns = NavierStokesSolver(1.0, 1.0, Re=50.0, Gr=0.0, P=3, N_ex=4, N_ey=4,
                             iprint=[])
@@ -68,7 +68,7 @@ def test_ns_sigma_shift_is_mass_diagonal():
 
 def test_cd_sigma_shift_is_mass_diagonal():
     """Same property for the CD T-block tangent."""
-    from sem_tpu.models.convection_diffusion import ConvectionDiffusionSolver
+    from sem_jax.models.convection_diffusion import ConvectionDiffusionSolver
 
     cd = ConvectionDiffusionSolver(1.0, 1.0, Pe=10.0, P=3, N_ex=4, N_ey=4,
                                    T_W=0.5, T_E=-0.5)
@@ -93,10 +93,10 @@ def test_cd_sigma_shift_is_mass_diagonal():
 
 def test_ser_controller_semantics():
     """Unit-pins the shared Δt controller (one implementation for the NS and
-    MDA PTC loops — VERDICT r3 #8): SER ramp with growth/shrink caps, blowup
+    MDA PTC loops): SER ramp with growth/shrink caps, blowup
     damping, the linear-failure shrink, and the trust-region ceiling with
     its relaxation."""
-    from sem_tpu.ptc import SERController
+    from sem_jax.ptc import SERController
 
     c = SERController(1.0, growth=3.0, dt_max=100.0)
     # healthy 2x progress: dt *= 2
@@ -141,7 +141,7 @@ def test_ptc_matches_jnk_at_moderate_ra():
     """PTC from zero lands on the same steady state as JNK (Ra=1e4,
     coarse grid): the shift vanishes as Δt→∞, so the converged answer
     satisfies the identical steady tolerances."""
-    from sem_tpu.coupling.boussinesq import build_coupled
+    from sem_jax.coupling.boussinesq import build_coupled
 
     kw = dict(Re=1e3, Ra=1e4, Pr=0.71, P_cd=3, N_ex_cd=4, N_ey_cd=4,
               P_ns=3, N_ex_ns=8, N_ey_ns=8, mtol_nonlin=1e-8, iprint=False)
@@ -171,8 +171,8 @@ def test_ptc_fused_host_fgmres_matches_unfused_under_shift():
     different discrete roots (measured: at Ra=1e3, Δt₀=1 the host march
     converges to rms 8e-9 on a state with u ~40× the physical anchor —
     fused and un-fused bit-identically)."""
-    from sem_tpu.coupling.boussinesq import build_coupled
-    from sem_tpu.coupling.mda import _fgmres, CoupledState
+    from sem_jax.coupling.boussinesq import build_coupled
+    from sem_jax.coupling.mda import _fgmres, CoupledState
 
     kw = dict(Re=1e3, Ra=1e4, Pr=0.71, P_cd=3, N_ex_cd=4, N_ey_cd=4,
               P_ns=3, N_ex_ns=8, N_ey_ns=8, mtol_nonlin=1e-8, iprint=False)
@@ -208,7 +208,7 @@ def test_ptc_reaches_ra_1e5_from_zero():
     Davis (1983) benchmark value v_max·RePr ≈ 68.59 (the domain maximum of
     v is attained at the horizontal centerline where the benchmark reports
     it; even this coarse grid resolves it to ~0.05%)."""
-    from sem_tpu.coupling.boussinesq import build_coupled
+    from sem_jax.coupling.boussinesq import build_coupled
 
     cd, ns, mda = build_coupled(1.0, 1.0, Re=1e3, Ra=1e5, Pr=0.71,
                                 P_cd=4, N_ex_cd=8, N_ey_cd=8,
